@@ -1,8 +1,8 @@
-// glc_tpu native runtime: FLAC bitstream packer + independent FLAC decoder.
+// glc native runtime: FLAC bitstream packer + independent FLAC decoder.
 //
-// Split of responsibilities (SURVEY.md §7): the TPU computes the *math* of
-// the FLAC encoder (fixed-predictor residuals, Rice parameter estimation —
-// reference src/flac.rs:480-552) as batched JAX ops; this C++ module owns the
+// Split of responsibilities (SURVEY.md §7): the *math* of the FLAC encoder
+// (fixed-predictor residuals, Rice parameter estimation — reference
+// src/flac.rs:480-552) has a batched JAX twin; this C++ module owns the
 // bit-serial work the reference does in Rust: MSB-first bit packing, Rice
 // coding (flac.rs:320-424, 554-684), frame headers and CRCs (flac.rs:19-80,
 // 747-905).  It also provides a from-scratch RFC 9639 FLAC *decoder* (the
@@ -220,11 +220,10 @@ extern "C" int32_t glc_flac_partition_order(int32_t block_size,
 // ---------------------------------------------------------------------------
 // Fixed-predictor residuals + Rice partition sums, one pass per row.
 //
-// Native twin of glc_tpu/flac/ops.py::flac_block_stats_host (itself the host
+// Native twin of glc/flac/ops.py::flac_block_stats_host (itself the host
 // twin of the device kernel; reference flac.rs:480-552): the numpy version
 // materializes a temporary per diff order (~600 MB of memory traffic for a
-// 60 s stereo stream at order 4), which serializes against the relay's
-// receive loop on a 1-core host.  This computes the order-k residual as the
+// 60 s stereo stream at order 4).  This computes the order-k residual as the
 // direct binomial kernel and the per-partition |residual| half-sums in ONE
 // scan (~85 MB of traffic), so the FLAC export's host math stops competing
 // with its own transfers.  Results are bit-identical to the numpy twin
@@ -361,7 +360,7 @@ void pack_one_frame(BitWriter& w, const int16_t* samples, int64_t sample_off,
         // 0..14 it would be UB shifts below (k>31, k<0) or the 0b1111
         // escape code (15..31) that decoders reject; clamp into the valid
         // range — any k in 0..14 yields correct (if suboptimal) FLAC.  The
-        // project's own estimator already clamps (glc_tpu/flac/ops.py).
+        // project's own estimator already clamps (glc/flac/ops.py).
         int k = rp[p];
         if (k < 0 || k > 14) k = 14;
         w.write_bits((uint64_t)k, 4);
@@ -743,7 +742,7 @@ bool decode_subframe(BitReader& br, int bs, int bps, int64_t* out) {
 // Byte-compatible with Rust bincode::serialize of the reference's serde
 // structs (reference src/codec.rs:31-69, 774-786): little-endian fixed-width
 // ints, u64 Vec lengths, Option as a 1-byte tag.  Columnar in/out matching
-// glc_tpu.container.schema.FrameSet.
+// glc.container.schema.FrameSet.
 // ---------------------------------------------------------------------------
 
 namespace {

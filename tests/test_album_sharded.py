@@ -2,7 +2,7 @@
 over a virtual 8-device mesh must match the single-device per-file path
 exactly.
 
-TPU analog of the reference's only scale-out surface (the rayon thread-pool
+The analog of the reference's only scale-out surface (the rayon thread-pool
 scaling of tests/test_performance.rs:134-156) applied to the GUI's album
 workflows (src/ui.rs:291-402): tracks ride the 'data' mesh axis, frames the
 'frames' axis, and the decode halo is the 1-hop ppermute.
@@ -13,8 +13,8 @@ import pytest
 
 from utils import generate_sine_wave, generate_white_noise
 
-from glc_tpu import Decoder, Encoder, serialize_encoded
-from glc_tpu.parallel import (
+from glc import Decoder, Encoder, serialize_encoded
+from glc.parallel import (
     decode_album_sharded,
     encode_album_sharded,
     make_mesh,

@@ -4,7 +4,7 @@ is split into device chunks (the rebuild's analog of the reference's
 
 import numpy as np
 
-from glc_tpu import CodecConfig, Decoder, Encoder, serialize_encoded
+from glc import CodecConfig, Decoder, Encoder, serialize_encoded
 from utils import generate_frequency_sweep, generate_white_noise
 
 
@@ -54,7 +54,7 @@ def test_len_bucket_ladder():
     """The resident-length ladder bounds both the overshoot (≤12.5%) and
     the number of distinct compiled shapes (≤8 per octave) — an exact
     length would recompile the encode programs per long-file length."""
-    from glc_tpu.codec.encoder import _len_bucket
+    from glc.codec.encoder import _len_bucket
 
     for x in (1, 16, 17, 100, 4097, 8193, 65535, 10**6):
         b = _len_bucket(x)
@@ -101,7 +101,7 @@ def test_compaction_matches_reference_order():
     stream order of a host global compaction — row-major over
     (frame, channel), ascending k — for sparse and dense rows alike."""
     import jax
-    from glc_tpu.ops.encode import _compact_pairs
+    from glc.ops.encode import _compact_pairs
 
     rng = np.random.default_rng(0)
     n = 1024
@@ -143,7 +143,7 @@ def test_blocked_compaction_matches_element_scatter():
     (bb_mult ≥ NB), and the static guard fallbacks (bb_mult=0, n not a
     multiple of the block size)."""
     import jax
-    from glc_tpu.ops.encode import _compact_pairs, _compact_pairs_auto
+    from glc.ops.encode import _compact_pairs, _compact_pairs_auto
 
     rng = np.random.default_rng(3)
     n = 1024
@@ -200,7 +200,7 @@ def test_grouped_sort_compaction_matches_element_scatter():
     hazard (q = −1 at the last coefficient of the last row in a group,
     whose packed key is the largest legal value)."""
     import jax
-    from glc_tpu.ops.encode import _compact_pairs, _compact_pairs_sorted
+    from glc.ops.encode import _compact_pairs, _compact_pairs_sorted
 
     rng = np.random.default_rng(5)
 
@@ -250,7 +250,7 @@ def test_sorted2_compaction_matches_element_scatter():
     path) and any row above it (full grouped-sort fallback) — full output
     array, sentinel hazard, and the overflow-drop boundary included."""
     import jax
-    from glc_tpu.ops.encode import _compact_pairs, _compact_pairs_sorted2
+    from glc.ops.encode import _compact_pairs, _compact_pairs_sorted2
 
     rng = np.random.default_rng(17)
     n, K, C = 1024, 8, 2
@@ -304,8 +304,8 @@ def test_compact_mode_dispatch_and_e2e_equivalence():
     container bytes under "sort", "sort:4", "blocked", and "legacy"."""
     import jax
     import pytest
-    from glc_tpu import CodecConfig, Encoder, serialize_encoded
-    from glc_tpu.ops.encode import _compact_pairs, compact_pairs_any
+    from glc import CodecConfig, Encoder, serialize_encoded
+    from glc.ops.encode import _compact_pairs, compact_pairs_any
 
     rng = np.random.default_rng(11)
     n, K, C = 1024, 4, 2
@@ -371,8 +371,8 @@ def test_encode_many_batched_group_matches_serial():
 def test_piecewise_upload_container_identical(monkeypatch):
     """upload_resident's piecewise path (device concat) must produce the
     same resident signal — containers bit-identical to whole-buffer upload."""
-    import glc_tpu.codec.encoder as em
-    from glc_tpu import Encoder, serialize_encoded
+    import glc.codec.encoder as em
+    from glc import Encoder, serialize_encoded
     from utils import generate_sine_wave
 
     s = generate_sine_wave(440.0, 44100, 2, 3.0)
@@ -395,8 +395,8 @@ def test_encode_many_segmented_matches_serial():
 
     from utils import generate_sine_wave, generate_white_noise
 
-    import glc_tpu.ops.encode as oe
-    from glc_tpu.config import DEFAULT_CONFIG
+    import glc.ops.encode as oe
+    from glc.config import DEFAULT_CONFIG
 
     cfg = replace(DEFAULT_CONFIG, encode_chunk_frames=128,
                   segmented_batch=True)
@@ -443,7 +443,7 @@ def test_encode_many_segmented_mixed_with_singles():
 
     from utils import generate_sine_wave
 
-    from glc_tpu.config import DEFAULT_CONFIG
+    from glc.config import DEFAULT_CONFIG
 
     short = generate_sine_wave(440.0, 44100, 2, 0.8)   # single segment
     long_a = generate_sine_wave(220.0, 44100, 2, 3.6)  # multi-segment
@@ -474,8 +474,8 @@ def test_bucket_pad_frames_masked_before_compaction():
     are unchanged by bucket size."""
     import jax
 
-    from glc_tpu.codec.tables import get_device_tables
-    from glc_tpu.ops.encode import encode_interleaved_device
+    from glc.codec.tables import get_device_tables
+    from glc.ops.encode import encode_interleaved_device
 
     rate, C = 44100, 2
     t = np.arange(int(rate * 1.0), dtype=np.float32) / rate
@@ -517,7 +517,7 @@ def test_bucket_pad_frames_masked_before_compaction():
     # container level: a bucket-forcing chunk size changes nothing
     from dataclasses import replace
 
-    from glc_tpu.config import DEFAULT_CONFIG
+    from glc.config import DEFAULT_CONFIG
 
     enc = Encoder(44100)
     want = serialize_encoded(enc.encode_pcm16(pcm, C))
@@ -534,7 +534,7 @@ def test_shift_compaction_matches_element_scatter():
     the sentinel-free last column, and the overflow-drop boundary all go
     through the same code path."""
     import jax
-    from glc_tpu.ops.encode import _compact_pairs, _compact_pairs_shift
+    from glc.ops.encode import _compact_pairs, _compact_pairs_shift
 
     rng = np.random.default_rng(23)
     n, K, C = 1024, 8, 2
@@ -590,7 +590,7 @@ def test_encode_stats_hook_accumulates_and_is_inert():
     ceiling floor model consumes up_n/down_n) must count one resident
     upload and at least one download per planned segment, and never change
     the container bytes."""
-    from glc_tpu.codec.encoder import upload_geometry
+    from glc.codec.encoder import upload_geometry
 
     samples = generate_frequency_sweep(150.0, 4000.0, 44100, 2, 6.0)
     enc = Encoder(44100, config=CodecConfig(encode_chunk_frames=128))

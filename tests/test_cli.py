@@ -1,12 +1,12 @@
 """CLI behavior tests (mirrors reference src/main.rs flag/exit-code
-semantics).  Drives `glc_tpu.cli.main` in-process to avoid per-test JAX
+semantics).  Drives `glc.cli.main` in-process to avoid per-test JAX
 startup cost."""
 
 import numpy as np
 import pytest
 
-from glc_tpu.cli import main
-from glc_tpu.io.wav import read_wav, write_wav
+from glc.cli import main
+from glc.io.wav import read_wav, write_wav
 from utils import generate_sine_wave
 
 
@@ -96,7 +96,7 @@ def test_encode_continue_on_error(wav_file, tmp_path):
 
 def test_encode_flac_input(tmp_path):
     """FLAC input → .glc (the claxon-load path, audio.rs:66-83)."""
-    from glc_tpu.flac.encoder import export_to_flac
+    from glc.flac.encoder import export_to_flac
     samples = generate_sine_wave(440.0, 44100, 2, 0.5)
     p = tmp_path / "in.flac"
     export_to_flac(p, samples, 44100, 2)
@@ -131,14 +131,14 @@ def test_encode_float_wav_input(tmp_path):
 
 def test_gui_module_importable():
     """ui.py must import cleanly (it only touches tkinter inside run_gui)."""
-    import glc_tpu.ui
-    assert hasattr(glc_tpu.ui, "run_gui")
+    import glc.ui
+    assert hasattr(glc.ui, "run_gui")
 
 
 def test_play_without_audio_backend(wav_file):
     """-p with no ffplay in PATH → reference-style error + exit 1
     (main.rs:181-198 stub semantics)."""
-    from glc_tpu.playback import ffplay_available
+    from glc.playback import ffplay_available
     if ffplay_available():
         import pytest
         pytest.skip("ffplay present; cannot exercise the no-backend path")
@@ -154,8 +154,8 @@ def test_cli_multi_file_encode_batched_matches_single(tmp_path, capsys):
     main.rs:545-583 semantics at batch speed."""
     import numpy as np
 
-    from glc_tpu.cli import main
-    from glc_tpu.io.wav import write_wav
+    from glc.cli import main
+    from glc.io.wav import write_wav
 
     rng = np.random.default_rng(0)
     wavs = []

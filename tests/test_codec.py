@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from glc_tpu import Decoder, Encoder
+from glc import Decoder, Encoder
 from utils import (
     calculate_snr,
     generate_sawtooth_wave,

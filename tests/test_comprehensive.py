@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from glc_tpu import Decoder, Encoder
+from glc import Decoder, Encoder
 from utils import (
     calculate_snr,
     generate_frequency_sweep,
@@ -116,7 +116,7 @@ def test_four_channel_audio():
 
 
 def test_clean_mode_beats_compat_stereo_quality():
-    """The match-or-beat gate as a test (VERDICT r4 item 8): compat mode
+    """The match-or-beat gate as a test: compat mode
     reproduces the reference's documented stereo amplitude defect
     (README.md:5-8 — rooted in quirks Q1/Q4), clean mode
     (reference_compat=False) must beat it by a wide margin on the same
@@ -124,7 +124,7 @@ def test_clean_mode_beats_compat_stereo_quality():
     ordering so a regression in either mode fails CI."""
     import numpy as np
 
-    from glc_tpu import CodecConfig, Decoder, Encoder
+    from glc import CodecConfig, Decoder, Encoder
 
     rate = 44100
     t = np.arange(2 * rate, dtype=np.float32) / rate

@@ -1,6 +1,6 @@
 """Coefficient sparsity (mirrors reference tests/test_compression_ratio.rs)."""
 
-from glc_tpu import Encoder
+from glc import Encoder
 from utils import generate_sine_wave
 
 

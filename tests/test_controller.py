@@ -1,7 +1,7 @@
 """Headless GUI controller tests (the logic of reference src/ui.rs:90-469,
 exercised without a display or audio device).
 
-The tkinter view (glc_tpu/ui.py) is a thin shell over CodecController;
+The tkinter view (glc/ui.py) is a thin shell over CodecController;
 everything the reference GUI does — async encode with progress, playlist
 management, gapless playback with a stop flag, the album FLAC export —
 is tested here through the controller API with a mock sink.
@@ -12,9 +12,9 @@ import pytest
 
 from utils import generate_sine_wave
 
-from glc_tpu import Encoder, save_encoded
-from glc_tpu.controller import CodecController
-from glc_tpu.io.wav import write_wav
+from glc import Encoder, save_encoded
+from glc.controller import CodecController
+from glc.io.wav import write_wav
 
 
 class MockSink:
@@ -160,7 +160,7 @@ def test_export_playlist_flac(glc_files, tmp_path):
     assert snap.export_progress is None
 
     # the exported album must be the gapless concatenation of both decodes
-    from glc_tpu.flac.decoder import read_flac
+    from glc.flac.decoder import read_flac
 
     samples, rate, ch = read_flac(out)
     assert rate == 44100 and ch == 1
@@ -176,10 +176,10 @@ def test_export_empty_playlist():
 
 def test_ui_imports_and_uses_controller():
     """ui.py must import cleanly and be a view over CodecController."""
-    import glc_tpu.ui
+    import glc.ui
 
-    assert hasattr(glc_tpu.ui, "run_gui")
+    assert hasattr(glc.ui, "run_gui")
     import inspect
 
-    src = inspect.getsource(glc_tpu.ui)
+    src = inspect.getsource(glc.ui)
     assert "CodecController" in src

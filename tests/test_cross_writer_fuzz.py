@@ -11,7 +11,7 @@ src/codec.rs:774-786, bincode-v1 wire format, quirk Q9).
 import numpy as np
 import pytest
 
-from glc_tpu.container.bincode import (
+from glc.container.bincode import (
     _deserialize_encoded_numpy,
     _native_deserialize,
     _native_serialize,
@@ -19,14 +19,14 @@ from glc_tpu.container.bincode import (
     deserialize_encoded,
     serialize_encoded,
 )
-from glc_tpu.container.schema import (
+from glc.container.schema import (
     PAIR_DTYPE,
     AudioHeader,
     EncodedAudio,
     FrameSet,
     GaplessInfo,
 )
-from glc_tpu.native import get_native
+from glc.native import get_native
 
 NATIVE = get_native() is not None
 

@@ -21,9 +21,9 @@ import pytest
 
 from utils import generate_sine_wave, generate_white_noise
 
-from glc_tpu import Decoder, Encoder
-from glc_tpu.album import decode_playlist
-from glc_tpu.container.bincode import save_encoded
+from glc import Decoder, Encoder
+from glc.album import decode_playlist
+from glc.container.bincode import save_encoded
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +40,7 @@ def _assert_within_1lsb(a, b):
 @pytest.fixture
 def batch_spy(monkeypatch):
     """Count batched-program dispatches inside decode_many."""
-    import glc_tpu.ops.decode as od
+    import glc.ops.decode as od
 
     calls = {"n": 0}
     real = od.decode_chunks_packed_batch_device
@@ -95,7 +95,7 @@ def test_decode_many_multichunk_falls_back(enc):
     streaming path but still lands in order next to batched peers."""
     from dataclasses import replace
 
-    from glc_tpu.config import DEFAULT_CONFIG
+    from glc.config import DEFAULT_CONFIG
 
     cfg = replace(DEFAULT_CONFIG, decode_chunk_frames=128)
     short = generate_sine_wave(440.0, 44100, 1, 0.5)
@@ -146,7 +146,7 @@ def test_decode_playlist_uses_batch(tmp_path, enc, batch_spy):
 @pytest.fixture
 def seg_spy(monkeypatch):
     """Count segment-batched (carry-chained) dispatches inside decode_many."""
-    import glc_tpu.ops.decode as od
+    import glc.ops.decode as od
 
     calls = {"n": 0}
     real = od.decode_chunks_packed_batch_carry_device
@@ -169,7 +169,7 @@ def test_decode_many_segmented_multichunk(enc, seg_spy):
     vs decode_i16, exact lengths."""
     from dataclasses import replace
 
-    from glc_tpu.config import DEFAULT_CONFIG
+    from glc.config import DEFAULT_CONFIG
 
     cfg = replace(DEFAULT_CONFIG, decode_chunk_frames=128,
                   segmented_batch=True)
@@ -198,7 +198,7 @@ def test_decode_many_mixes_single_and_multichunk(enc, batch_spy, seg_spy):
     input order."""
     from dataclasses import replace
 
-    from glc_tpu.config import DEFAULT_CONFIG
+    from glc.config import DEFAULT_CONFIG
 
     cfg = replace(DEFAULT_CONFIG, decode_chunk_frames=128,
                   segmented_batch=True)
@@ -221,7 +221,7 @@ def test_decode_many_interleaved_default_bit_identical(enc, seg_spy):
     track's output is BIT-identical to decode_i16 (same generator)."""
     from dataclasses import replace
 
-    from glc_tpu.config import DEFAULT_CONFIG
+    from glc.config import DEFAULT_CONFIG
 
     cfg = replace(DEFAULT_CONFIG, decode_chunk_frames=128)
     assert not cfg.segmented_batch
@@ -242,12 +242,12 @@ def test_decode_many_interleaved_default_bit_identical(enc, seg_spy):
 
 
 def test_decode_i16_stats_hook_accumulates_and_is_inert():
-    """The stage-attribution hook (bench's per-rep decode attribution,
-    VERDICT r4 item 1) must accumulate pack/disp/wait and never change
+    """The stage-attribution hook (bench's per-rep decode attribution)
+    must accumulate pack/disp/wait and never change
     the decoded bytes."""
     import numpy as np
 
-    from glc_tpu import Decoder, Encoder
+    from glc import Decoder, Encoder
 
     t = np.arange(44100, dtype=np.float32) / 44100
     sig = np.repeat((0.4 * np.sin(2 * np.pi * 330 * t)).astype(np.float32), 2)
@@ -276,8 +276,8 @@ def test_decode_many_pipelined_mixed_geometry():
     track, each bit-identical to its own decode_i16."""
     import numpy as np
 
-    from glc_tpu import CodecConfig, Decoder, Encoder
-    from glc_tpu.container.schema import (
+    from glc import CodecConfig, Decoder, Encoder
+    from glc.container.schema import (
         AudioHeader,
         EncodedAudio,
         FrameSet,

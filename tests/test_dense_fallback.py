@@ -16,9 +16,9 @@ container bytes.  These tests pin that contract.
 import numpy as np
 import pytest
 
-import glc_tpu.codec.encoder as encoder_mod
-from glc_tpu import Decoder, Encoder, deserialize_encoded, serialize_encoded
-from glc_tpu.config import CodecConfig
+import glc.codec.encoder as encoder_mod
+from glc import Decoder, Encoder, deserialize_encoded, serialize_encoded
+from glc.config import CodecConfig
 
 
 def bandlimited_noise(duration_s: float, channels: int, frac: float = 0.4,

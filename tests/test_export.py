@@ -4,14 +4,14 @@ plus WAV reader/writer coverage (the hound-equivalent layer)."""
 import numpy as np
 import pytest
 
-from glc_tpu import Decoder, Encoder
-from glc_tpu.io.audio import (
+from glc import Decoder, Encoder
+from glc.io.audio import (
     AudioFormatError,
     export_to_flac,
     export_to_wav,
     load_audio_file_lossless,
 )
-from glc_tpu.io.wav import read_wav, write_wav
+from glc.io.wav import read_wav, write_wav
 from utils import generate_sine_wave
 
 
@@ -115,10 +115,10 @@ def test_no_extension(tmp_path):
 
 
 def test_album_playlist_export(tmp_path):
-    """Library-level gapless album join (glc_tpu.album; ui.rs:291-402)."""
-    from glc_tpu.album import decode_playlist, export_playlist_to_flac
-    from glc_tpu import Encoder, save_encoded
-    from glc_tpu.flac.decoder import read_flac
+    """Library-level gapless album join (glc.album; ui.rs:291-402)."""
+    from glc.album import decode_playlist, export_playlist_to_flac
+    from glc import Encoder, save_encoded
+    from glc.flac.decoder import read_flac
 
     paths = []
     total = 0
@@ -140,8 +140,8 @@ def test_album_playlist_export(tmp_path):
 
 
 def test_album_mismatched_rates_rejected(tmp_path):
-    from glc_tpu.album import decode_playlist
-    from glc_tpu import Encoder, save_encoded
+    from glc.album import decode_playlist
+    from glc import Encoder, save_encoded
 
     p1 = tmp_path / "a.glc"
     p2 = tmp_path / "b.glc"
@@ -154,7 +154,7 @@ def test_album_mismatched_rates_rejected(tmp_path):
 
 
 def test_album_empty_playlist_rejected():
-    from glc_tpu.album import decode_playlist
+    from glc.album import decode_playlist
     with pytest.raises(ValueError):
         decode_playlist([])
 
@@ -175,7 +175,7 @@ def test_wav_8bit_offset_binary(tmp_path):
     fmt = struct.pack("<HHIIHH", 1, 1, 8000, 8000, 1, 8)
     p = tmp_path / "u8.wav"
     p.write_bytes(_wav_bytes(fmt, vals.tobytes()))
-    from glc_tpu.io.wav import read_wav
+    from glc.io.wav import read_wav
 
     s, rate, ch = read_wav(p)
     assert (rate, ch) == (8000, 1)
@@ -191,7 +191,7 @@ def test_wav_32bit_int_and_float64(tmp_path):
     fmt = struct.pack("<HHIIHH", 1, 1, 44100, 44100 * 4, 4, 32)
     p = tmp_path / "i32.wav"
     p.write_bytes(_wav_bytes(fmt, i32.tobytes()))
-    from glc_tpu.io.wav import read_wav
+    from glc.io.wav import read_wav
 
     s, _r, _c = read_wav(p)
     np.testing.assert_allclose(s, (i32 / 2.0**31).astype(np.float32))
@@ -217,7 +217,7 @@ def test_wav_extensible_resolves_subformat(tmp_path):
            + b"\x00" * 14)
     p = tmp_path / "ext.wav"
     p.write_bytes(_wav_bytes(fmt, i16.tobytes()))
-    from glc_tpu.io.wav import read_wav, read_wav_pcm16
+    from glc.io.wav import read_wav, read_wav_pcm16
 
     s, rate, ch = read_wav(p)
     assert (rate, ch) == (44100, 2)

@@ -7,7 +7,7 @@ Ratio = original f32 byte size / .glc file size, stereo 10 s signals
 import numpy as np
 import pytest
 
-from glc_tpu import Encoder, save_encoded
+from glc import Encoder, save_encoded
 from utils import (
     generate_frequency_sweep,
     generate_sawtooth_wave,

@@ -8,10 +8,10 @@ hand-written encoder's output with the external claxon crate).
 import numpy as np
 import pytest
 
-from glc_tpu.flac import decode_flac, encode_flac, encode_flac_with_level
-from glc_tpu.flac.encoder import FlacError, _compute_frame_data
-from glc_tpu.flac import bitpack
-from glc_tpu.io.audio import convert_f32_to_i16
+from glc.flac import decode_flac, encode_flac, encode_flac_with_level
+from glc.flac.encoder import FlacError, _compute_frame_data
+from glc.flac import bitpack
+from glc.io.audio import convert_f32_to_i16
 from utils import generate_sine_wave, generate_white_noise
 
 
@@ -114,7 +114,7 @@ def test_native_and_python_packers_byte_identical():
 
 def test_order_helpers_match_native():
     """Python and C++ predictor/partition order functions must agree."""
-    from glc_tpu.native import get_native
+    from glc.native import get_native
     lib = get_native()
     if lib is None:
         pytest.skip("native library unavailable")
@@ -146,7 +146,7 @@ def test_host_and_device_flac_stats_agree():
     """flac_block_stats (device) and flac_block_stats_host (numpy) are the
     same exact integer math."""
     import jax
-    from glc_tpu.flac.ops import flac_block_stats, flac_block_stats_host
+    from glc.flac.ops import flac_block_stats, flac_block_stats_host
 
     rng = np.random.default_rng(9)
     x = rng.integers(-32768, 32767, (16, 1152)).astype(np.int32)
@@ -177,7 +177,7 @@ def test_flac_last_block_equals_predictor_order():
 def test_flac_pack_rejects_bad_geometry():
     """Native packer validates block sizes and sample coverage."""
     import ctypes as c
-    from glc_tpu.native import get_native
+    from glc.native import get_native
     lib = get_native()
     if lib is None:
         pytest.skip("native library unavailable")
@@ -204,9 +204,9 @@ def test_native_block_stats_matches_numpy():
     FLAC."""
     import numpy as np
 
-    from glc_tpu.flac.encoder import _block_stats_fast
-    from glc_tpu.flac.ops import flac_block_stats_host
-    from glc_tpu.native import get_native
+    from glc.flac.encoder import _block_stats_fast
+    from glc.flac.ops import flac_block_stats_host
+    from glc.native import get_native
 
     if get_native() is None:
         import pytest

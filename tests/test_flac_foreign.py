@@ -9,8 +9,8 @@ hand-assembled bit-by-bit with the Python BitWriter.
 
 import numpy as np
 
-from glc_tpu.flac import decode_flac
-from glc_tpu.flac.bitpack import BitWriter, crc8, crc16, write_utf8_number
+from glc.flac import decode_flac
+from glc.flac.bitpack import BitWriter, crc8, crc16, write_utf8_number
 
 BS = 16  # block size for all hand-built frames
 RATE = 44100
@@ -206,7 +206,7 @@ def test_crc_mismatch_rejected():
     data[-1] ^= 0xFF  # corrupt the CRC16
     import pytest
 
-    from glc_tpu.flac.decoder import FlacDecodeError
+    from glc.flac.decoder import FlacDecodeError
     with pytest.raises(FlacDecodeError):
         decode_flac(bytes(data))
 
@@ -214,7 +214,7 @@ def test_crc_mismatch_rejected():
 def test_24bit_flac_load_path(tmp_path):
     """A 24-bit FLAC (which our encoder never writes) loads through the f32
     branch of load_audio_for_encode, normalized by 2^23 (audio.rs:72)."""
-    from glc_tpu.io.audio import load_audio_for_encode
+    from glc.io.audio import load_audio_for_encode
 
     vals = np.array([0, 1 << 20, -(1 << 20), (1 << 23) - 1, -(1 << 23), 42,
                      -7, 12345, -54321, 99, -99, 7, 1, -1, 2, -2], np.int64)

@@ -1,4 +1,4 @@
-"""RFC 9639 byte-literal conformance fixtures (VERDICT r4 item 6).
+"""RFC 9639 byte-literal conformance fixtures.
 
 Both of this repo's FLAC decoders (native C++ and the pure-Python twin) were
 written by the same builder, so cross-checking them against each other — or
@@ -14,7 +14,7 @@ fixtures are the independent evidence available:
   RFC 1321's own test suite — not derived from this repo's code at all;
 * the four fixture streams below are BYTE LITERALS, hand-derived field by
   field from the RFC 9639 text (derivations in comments), written with
-  fresh throwaway bit math, NOT with glc_tpu's BitWriter / CRC / encoder
+  fresh throwaway bit math, NOT with glc's BitWriter / CRC / encoder
   code — a decoder bug that this repo's generator code shares cannot
   round-trip its way past a literal;
 * stream B doubles as a spec-derived golden for the ENCODER's framing:
@@ -30,10 +30,10 @@ import hashlib
 import numpy as np
 import pytest
 
-from glc_tpu.flac.decoder import decode_flac
-from glc_tpu.flac.encoder import encode_flac_i16_with_level
-from glc_tpu.flac.pydecoder import decode_flac_python
-from glc_tpu.native import get_native
+from glc.flac.decoder import decode_flac
+from glc.flac.encoder import encode_flac_i16_with_level
+from glc.flac.pydecoder import decode_flac_python
+from glc.native import get_native
 
 DECODERS = [pytest.param(decode_flac_python, id="python")]
 if get_native() is not None:
@@ -192,7 +192,7 @@ def test_encoder_framing_golden_level0():
 def test_crc8_published_check_value():
     """RFC 9639 §9.2's frame-header CRC is the catalogued CRC-8/SMBUS
     (poly 0x07, init 0, MSB-first): check("123456789") = 0xF4."""
-    from glc_tpu.flac.bitpack import crc8
+    from glc.flac.bitpack import crc8
 
     assert crc8(b"123456789") == 0xF4
     assert crc8(b"") == 0x00
@@ -201,7 +201,7 @@ def test_crc8_published_check_value():
 def test_crc16_published_check_value():
     """RFC 9639 §9.2's frame CRC is the catalogued CRC-16/UMTS
     (poly 0x8005, init 0, MSB-first): check("123456789") = 0xFEE8."""
-    from glc_tpu.flac.bitpack import crc16
+    from glc.flac.bitpack import crc16
 
     assert crc16(b"123456789") == 0xFEE8
     assert crc16(b"") == 0x0000

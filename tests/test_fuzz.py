@@ -5,10 +5,10 @@ bounds-checked)."""
 import numpy as np
 import pytest
 
-from glc_tpu import Encoder, serialize_encoded
-from glc_tpu.container.bincode import BincodeError, deserialize_encoded
-from glc_tpu.flac import decode_flac, encode_flac
-from glc_tpu.flac.decoder import FlacDecodeError
+from glc import Encoder, serialize_encoded
+from glc.container.bincode import BincodeError, deserialize_encoded
+from glc.flac import decode_flac, encode_flac
+from glc.flac.decoder import FlacDecodeError
 from utils import generate_sine_wave
 
 
@@ -97,7 +97,7 @@ def test_flac_truncations(flac_bytes):
 def test_flac_hostile_streaminfo_no_abort():
     """A crafted STREAMINFO claiming 2^36-1 samples × 8 channels must not
     abort the process via bad_alloc (exceptions stay behind the C ABI)."""
-    from glc_tpu.flac.bitpack import BitWriter
+    from glc.flac.bitpack import BitWriter
     w = BitWriter()
     w.write_bytes(b"fLaC")
     w.write_bits(1, 1); w.write_bits(0, 7); w.write_bits(34, 24)
@@ -119,7 +119,7 @@ def test_encode_nan_inf_input_no_crash():
     """NaN/Inf samples are garbage-in (the reference propagates them into
     quantization too), but the pipeline must not crash and the container
     must stay structurally valid and round-trippable."""
-    from glc_tpu import Decoder
+    from glc import Decoder
 
     s = generate_sine_wave(440.0, 44100, 1, 0.2)
     s[100] = np.nan

@@ -10,13 +10,13 @@ reference src/codec.rs:427-455) across a broad sweep of lengths.
 import numpy as np
 import pytest
 
-from glc_tpu.codec.encoder import (
+from glc.codec.encoder import (
     bucket_upload,
     frame_plan,
     frame_signal,
     upload_geometry,
 )
-from glc_tpu.config import DEFAULT_CONFIG as CFG
+from glc.config import DEFAULT_CONFIG as CFG
 
 
 LENGTHS = [1, 2, 3, 511, 512, 513, 1023, 1024, 1025, 2047, 2048, 2049,

@@ -11,10 +11,10 @@ import time
 import jax
 import numpy as np
 
-from glc_tpu import Encoder
-from glc_tpu.codec.tables import get_device_tables
-from glc_tpu.ops.encode import encode_chunk_device
-from glc_tpu.ops.mdct import get_mdct_tables, mdct
+from glc import Encoder
+from glc.codec.tables import get_device_tables
+from glc.ops.encode import encode_chunk_device
+from glc.ops.mdct import get_mdct_tables, mdct
 from utils import (
     generate_frequency_sweep,
     generate_sine_wave,

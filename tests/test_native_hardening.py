@@ -8,10 +8,10 @@ import struct
 import numpy as np
 import pytest
 
-from glc_tpu.container.bincode import BincodeError, deserialize_encoded
-from glc_tpu.flac import decode_flac
-from glc_tpu.flac.bitpack import BitWriter
-from glc_tpu.flac.decoder import FlacDecodeError
+from glc.container.bincode import BincodeError, deserialize_encoded
+from glc.flac import decode_flac
+from glc.flac.bitpack import BitWriter
+from glc.flac.decoder import FlacDecodeError
 
 import sys
 
@@ -111,9 +111,9 @@ def test_native_pack_clamps_hostile_rice_params():
     """Out-of-range Rice parameters through the C ABI are clamped into
     0..14 — the output stays valid FLAC instead of UB shifts or escape-code
     corruption."""
-    from glc_tpu.flac import bitpack
-    from glc_tpu.flac.encoder import _pack
-    from glc_tpu.native import get_native
+    from glc.flac import bitpack
+    from glc.flac.encoder import _pack
+    from glc.native import get_native
 
     if get_native() is None:
         pytest.skip("native library unavailable")
@@ -134,15 +134,15 @@ def test_native_pack_clamps_hostile_rice_params():
 def test_native_serialize_rejects_overflowing_nnz():
     """nnz counts near 2^62 must fail the overflow-guarded size pass (the
     wrapped total previously undersized the allocation)."""
-    from glc_tpu.container.bincode import _native_serialize
-    from glc_tpu.container.schema import (
+    from glc.container.bincode import _native_serialize
+    from glc.container.schema import (
         PAIR_DTYPE,
         AudioHeader,
         EncodedAudio,
         FrameSet,
         GaplessInfo,
     )
-    from glc_tpu.native import get_native
+    from glc.native import get_native
 
     if get_native() is None:
         pytest.skip("native library unavailable")
@@ -165,8 +165,8 @@ def test_native_fill_self_bounding_against_mutated_buffer():
     hostile at fill time."""
     import ctypes as c
 
-    from glc_tpu.container.schema import PAIR_DTYPE
-    from glc_tpu.native import get_native
+    from glc.container.schema import PAIR_DTYPE
+    from glc.native import get_native
 
     lib = get_native()
     if lib is None:

@@ -15,8 +15,8 @@ import pytest
 
 from utils import generate_sine_wave
 
-from glc_tpu import Decoder, Encoder, save_encoded
-from glc_tpu.playback import (
+from glc import Decoder, Encoder, save_encoded
+from glc.playback import (
     AudioDeviceSink,
     SamplesSource,
     audio_device_available,
@@ -90,7 +90,7 @@ def test_stream_sources_gapless_continuity(two_glc_files):
     streamed = np.concatenate(streamed)
 
     expected_parts = []
-    from glc_tpu import load_encoded
+    from glc import load_encoded
 
     for p in two_glc_files:
         ea = load_encoded(p)

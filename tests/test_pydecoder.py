@@ -2,7 +2,7 @@
 
 The reference always has FLAC input because claxon is a hard dependency
 (reference src/audio.rs:66-83); our native decoder needs g++.  The Python
-fallback (glc_tpu/flac/pydecoder.py) keeps FLAC input and the encoder's
+fallback (glc/flac/pydecoder.py) keeps FLAC input and the encoder's
 conformance oracle alive without a toolchain; these tests pin it
 bit-identical to the native implementation on both well-formed and hostile
 streams.
@@ -13,10 +13,10 @@ import pytest
 
 from utils import generate_sine_wave, generate_white_noise
 
-from glc_tpu.flac.decoder import decode_flac
-from glc_tpu.flac.encoder import encode_flac_i16_with_level
-from glc_tpu.flac.pydecoder import decode_flac_python
-from glc_tpu.native import get_native
+from glc.flac.decoder import decode_flac
+from glc.flac.encoder import encode_flac_i16_with_level
+from glc.flac.pydecoder import decode_flac_python
+from glc.native import get_native
 
 
 def _encode(pcm, rate, ch, level=5):

@@ -7,7 +7,7 @@ clean mode demonstrates the fixes without changing the wire format.
 
 import numpy as np
 
-from glc_tpu import CodecConfig, Decoder, Encoder
+from glc import CodecConfig, Decoder, Encoder
 from utils import calculate_snr, generate_sine_wave, generate_white_noise
 
 CLEAN = CodecConfig(reference_compat=False)
@@ -122,7 +122,7 @@ def test_decode_i16_matches_f32_path():
     than decode()'s, so values may differ by ±1 ulp — which flips the i16
     LSB only where x·32767 sits exactly on an integer boundary.  Contract:
     ≤1 LSB difference, on a vanishing fraction of samples."""
-    from glc_tpu.io.audio import convert_f32_to_i16
+    from glc.io.audio import convert_f32_to_i16
 
     samples = generate_sine_wave(440.0, 44100, 2, 1.3)
     encoded = Encoder(44100).encode(samples, 2)
@@ -142,7 +142,7 @@ def test_round_half_away_matches_rust_semantics():
     half to even (SURVEY.md §7 hard part #2)."""
     import jax
 
-    from glc_tpu.ops.encode import round_half_away
+    from glc.ops.encode import round_half_away
 
     cases = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49999997,
                       -0.49999997, 3.0, -3.0, 0.0], np.float32)
@@ -155,7 +155,7 @@ def test_round_half_away_matches_rust_semantics():
 def test_out_of_range_coefficient_index_skipped():
     """The reference skips sparse indices ≥ n at decode (codec.rs:661);
     a foreign .glc with k=2000 must decode without error."""
-    from glc_tpu.container.schema import (
+    from glc.container.schema import (
         PAIR_DTYPE, AudioHeader, EncodedAudio, EncodedFrame, GaplessInfo,
     )
 
@@ -178,7 +178,7 @@ def test_progress_protocol_sequence():
     500-frame flush → Complete("Decoded N frames in X.XXs")."""
     import re
 
-    from glc_tpu.container.schema import ProgressKind
+    from glc.container.schema import ProgressKind
 
     samples = generate_sine_wave(440.0, 44100, 1, 12.0)  # 517 frames
     encoded = Encoder(44100).encode(samples, 1)
@@ -202,7 +202,7 @@ def test_duplicate_coefficient_index_last_wins():
     """The reference's sequential scatter is last-wins on duplicate indices
     (codec.rs:660-663); the rebuild must decode such foreign containers
     deterministically the same way."""
-    from glc_tpu.container.schema import (
+    from glc.container.schema import (
         PAIR_DTYPE, AudioHeader, EncodedAudio, EncodedFrame, GaplessInfo,
     )
 

@@ -8,15 +8,15 @@ import pytest
 
 from utils import generate_sine_wave
 
-from glc_tpu import Decoder, Encoder
-from glc_tpu.container.schema import (
+from glc import Decoder, Encoder
+from glc.container.schema import (
     PAIR_DTYPE,
     AudioHeader,
     EncodedAudio,
     FrameSet,
     GaplessInfo,
 )
-from glc_tpu.flac.encoder import (
+from glc.flac.encoder import (
     encode_flac_i16_streaming,
     encode_flac_i16_with_level,
 )
@@ -36,8 +36,8 @@ def test_streaming_flac_ragged_interleaved_stream():
 
 def test_ragged_glc_decode_to_flac_end_to_end(tmp_path):
     """Encode ragged stereo → .glc → CLI FLAC export (streaming path)."""
-    from glc_tpu import save_encoded
-    from glc_tpu.cli import main
+    from glc import save_encoded
+    from glc.cli import main
 
     s = generate_sine_wave(440.0, 44100, 2, 0.5)[:-1]  # odd interleaved count
     ea = Encoder(44100).encode(s, 2)
@@ -51,8 +51,8 @@ def test_ragged_glc_decode_to_flac_end_to_end(tmp_path):
 def test_album_sharded_short_track():
     """Tracks shorter than one frame must encode on the mesh exactly like
     the serial encoder (which zero-extends its resident signal)."""
-    from glc_tpu import serialize_encoded
-    from glc_tpu.parallel import encode_album_sharded, make_mesh
+    from glc import serialize_encoded
+    from glc.parallel import encode_album_sharded, make_mesh
 
     mesh = make_mesh(8)
     short = generate_sine_wave(440.0, 44100, 2, 0.002)  # ~88 samples/channel
@@ -121,8 +121,8 @@ def test_decode_hostile_container_with_huge_duplicate_row():
 def test_controller_decode_error_status_survives(tmp_path):
     """A decode error during GUI playback must remain visible — not be
     overwritten by 'Playback finished' (old view-thread returned early)."""
-    from glc_tpu import save_encoded
-    from glc_tpu.controller import CodecController
+    from glc import save_encoded
+    from glc.controller import CodecController
 
     good = tmp_path / "good.glc"
     save_encoded(
@@ -145,7 +145,7 @@ def test_controller_decode_error_status_survives(tmp_path):
     ctl.add_to_playlist([0])
 
     # force a decode error by monkeypatching the chunk stream
-    import glc_tpu.playback as pb
+    import glc.playback as pb
 
     real = pb.stream_playlist_sources
 

@@ -1,6 +1,6 @@
-"""Multi-chip sharding tests on a virtual 8-device CPU mesh.
+"""Multi-device sharding tests on a virtual 8-device CPU mesh.
 
-The TPU analog of the reference's rayon thread-scaling tests
+The analog of the reference's rayon thread-scaling tests
 (reference tests/test_performance.rs:134-156): the same math must produce
 the same results when the frame axis is sharded across devices, with the
 OLA halo exchanged via ppermute.
@@ -10,19 +10,24 @@ import jax
 import numpy as np
 import pytest
 
-from glc_tpu.codec.tables import get_device_tables
-from glc_tpu.ops.decode import decode_chunk_device
-from glc_tpu.ops.encode import encode_chunk_device
-from glc_tpu.parallel import (
+from glc.codec.tables import get_device_tables
+from glc.ops.decode import decode_chunk_device
+from glc.ops.encode import encode_chunk_device
+from glc.parallel import (
     decode_chunk_sharded,
     encode_chunk_sharded,
     make_mesh,
     roundtrip_step_sharded,
 )
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 virtual devices"
-)
+
+@pytest.fixture(scope="module")
+def eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices (conftest gives the CPU backend 8)")
+
+
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
 @pytest.fixture(scope="module")
@@ -105,12 +110,20 @@ def test_roundtrip_step_runs(tables):
     assert np.asarray(hops).shape == (2, 8, 1, 1024)
 
 
-def test_graft_entry_and_dryrun():
-    """The driver contract: entry() compiles single-chip; dryrun_multichip
-    compiles and executes the sharded step on the virtual mesh."""
+def _graft_entry():
     import sys
-    sys.path.insert(0, "/root/repo")
-    import __graft_entry__ as g
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import __graft_entry__
+
+    return __graft_entry__
+
+
+def test_graft_entry_and_dryrun():
+    """entry() compiles on one device; dryrun_multichip compiles and
+    executes the sharded step on the virtual mesh."""
+    g = _graft_entry()
 
     fn, args = g.entry()
     out = jax.jit(fn)(*args)
@@ -118,3 +131,26 @@ def test_graft_entry_and_dryrun():
     assert q.shape == (128, 2, 1024)
     assert use_raw.shape == (128,)
     g.dryrun_multichip(8)
+
+
+def test_dryrun_refuses_missing_devices():
+    """Asking for more devices than exist raises instead of falling back."""
+    with pytest.raises(ValueError, match="only 8 present"):
+        _graft_entry().dryrun_multichip(16)
+
+
+def test_check_mesh_on_four_devices():
+    """The mesh check that chip_smoke.py --four-cards runs, on 4 virtual
+    CPU devices: the (2, 2) mesh, bit-identical encode, ≤1-ulp decode."""
+    from utils import generate_sine_wave, generate_white_noise
+
+    from glc.parallel import check_mesh
+
+    album = [
+        generate_sine_wave(440.0, 44100, 2, 0.4),
+        generate_white_noise(44100, 2, 0.1, 5) * np.float32(0.5),
+    ]
+    res = check_mesh(4, album)
+    assert res["mesh"] == {"data": 2, "frames": 2}
+    assert res["tracks"] == 2 and res["encode_bit_identical"]
+    assert np.isfinite(res["roundtrip_mse"])

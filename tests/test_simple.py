@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from glc_tpu import Decoder, Encoder
+from glc import Decoder, Encoder
 from utils import calculate_snr_range, generate_sine_wave
 
 
@@ -67,7 +67,7 @@ def test_tiny_input_single_frame():
 
 
 def test_integer_input_rejected():
-    from glc_tpu import Encoder
+    from glc import Encoder
     with pytest.raises(TypeError):
         Encoder(44100).encode(np.zeros(1000, np.int16), 1)
 

@@ -11,8 +11,8 @@ import pytest
 
 from utils import generate_sine_wave, generate_white_noise
 
-from glc_tpu import CodecConfig, Decoder, Encoder
-from glc_tpu.flac.encoder import (
+from glc import CodecConfig, Decoder, Encoder
+from glc.flac.encoder import (
     FlacError,
     encode_flac_i16_streaming,
     encode_flac_i16_with_level,
@@ -102,8 +102,8 @@ def test_streaming_flac_incremental_matches_whole_pack(monkeypatch):
 def test_cli_decode_uses_streaming_path(tmp_path, capsys):
     """The CLI flac export (now streamed) produces the same bytes and the
     same printed output shape as before."""
-    from glc_tpu.cli import main
-    from glc_tpu.io.wav import write_wav
+    from glc.cli import main
+    from glc.io.wav import write_wav
 
     s = generate_sine_wave(440.0, 44100, 2, 0.5)
     wav = tmp_path / "t.wav"
@@ -116,7 +116,7 @@ def test_cli_decode_uses_streaming_path(tmp_path, capsys):
     flac = wav.with_suffix(".flac")
 
     # oracle: batch decode + batch encode
-    from glc_tpu import load_encoded
+    from glc import load_encoded
 
     ea = load_encoded(glc)
     dec = Decoder(2, 44100)
@@ -125,8 +125,8 @@ def test_cli_decode_uses_streaming_path(tmp_path, capsys):
 
 
 def test_album_export_streaming_byte_identity(tmp_path):
-    from glc_tpu import save_encoded
-    from glc_tpu.album import export_playlist_to_flac
+    from glc import save_encoded
+    from glc.album import export_playlist_to_flac
 
     paths = []
     for i, f in enumerate((440.0, 660.0)):
@@ -138,7 +138,7 @@ def test_album_export_streaming_byte_identity(tmp_path):
     export_playlist_to_flac(paths, out, 5)
 
     dec = Decoder(1, 44100)
-    from glc_tpu import load_encoded
+    from glc import load_encoded
 
     full = np.concatenate(
         [dec.decode_i16(load_encoded(p)) for p in paths]
@@ -148,9 +148,8 @@ def test_album_export_streaming_byte_identity(tmp_path):
 
 
 def test_stream_chunk_override_byte_identical():
-    """The stream_chunk_frames override changes transfer scheduling only:
-    FLAC bytes are identical for any decode chunk size (the overlap win is
-    pure pipelining)."""
+    """The chunk_frames override changes transfer scheduling only: on the
+    CPU backend FLAC bytes are identical for any decode chunk size."""
     s = generate_sine_wave(440.0, 44100, 2, 2.2)
     ea = Encoder(44100).encode(s, 2)
     dec = Decoder(2, 44100)

@@ -11,7 +11,7 @@ the compile count stays bounded on CPU.
 import numpy as np
 import pytest
 
-from glc_tpu import (
+from glc import (
     CodecConfig,
     Decoder,
     Encoder,
@@ -93,7 +93,7 @@ def test_random_config_invariants(case):
     # i16 surface agrees with the f32 surface within 1 LSB — compared
     # against the exporters' own f32 conversion (the documented contract),
     # not an f64 re-derivation that could disagree by an extra LSB
-    from glc_tpu.io.audio import convert_f32_to_i16
+    from glc.io.audio import convert_f32_to_i16
 
     i16 = dec.decode_i16(ea2)
     ref = convert_f32_to_i16(out)

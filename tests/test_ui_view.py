@@ -1,7 +1,7 @@
 """Drive the tkinter view for real poll() cycles under a display.
 
-VERDICT round-2 #8: the view's listbox-sync and progress pack/forget logic
-(glc_tpu/ui.py poll(), mirroring reference src/ui.rs:472-505) had never
+The view's listbox-sync and progress pack/forget logic
+(glc/ui.py poll(), mirroring reference src/ui.rs:472-505) had never
 executed in any test.  These tests run it when a display is available:
 $DISPLAY if set, else an Xvfb we launch ourselves.  When neither exists
 (this environment ships no Xvfb — probe documented in the skip reason),
@@ -48,8 +48,8 @@ def gui():
     old = os.environ.get("DISPLAY")
     os.environ["DISPLAY"] = disp
     try:
-        from glc_tpu.controller import CodecController
-        from glc_tpu.ui import build_gui
+        from glc.controller import CodecController
+        from glc.ui import build_gui
 
         ctl = CodecController()
         try:
